@@ -30,6 +30,10 @@ def pytest_configure(config):
         "markers",
         "slow: long model-smoke / system tests excluded from the default "
         "fast tier (enable with --runslow or -m slow)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips with a reason where there is none")
 
 
 def pytest_collection_modifyitems(config, items):

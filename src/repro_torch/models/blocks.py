@@ -1,0 +1,45 @@
+"""Transformer block, full attention + dense FFN (counterpart of
+``repro.models.blocks.block_apply`` and ``block_paged_cache_init``)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.attention import GQA
+from repro_torch.models.ffn import MLP
+
+
+class Block(nn.Module):
+    def __init__(self, norm1: torch.Tensor, attn: GQA, norm2: torch.Tensor,
+                 ffn: MLP):
+        super().__init__()
+        self.attn, self.ffn = attn, ffn
+        self.register_buffer("norm1", norm1)
+        self.register_buffer("norm2", norm2)
+
+    @classmethod
+    def init(cls, gen, cfg: ModelConfig, **lin) -> "Block":
+        ones = torch.ones((cfg.d_model,), dtype=lin["dtype"],
+                          device=lin["device"])
+        return cls(ones, GQA.init(gen, cfg, **lin), ones.clone(),
+                   MLP.init(gen, cfg, **lin))
+
+    def forward(self, x: torch.Tensor, *, cfg: ModelConfig, **attn_kw
+                ) -> torch.Tensor:
+        h = L.apply_norm(self.norm1, x, cfg.norm_eps)
+        x = x + self.attn(h, cfg=cfg, **attn_kw)
+        h = L.apply_norm(self.norm2, x, cfg.norm_eps)
+        return x + self.ffn(h)
+
+
+def block_paged_cache_init(cfg: ModelConfig, num_layers: int, num_pages: int,
+                           page_size: int, *, dtype: torch.dtype,
+                           device: torch.device) -> dict:
+    """(num_layers, num_pages + 1, page_size, Hkv, D) K and V pools; page 0
+    is the null page (see ``serving/kv_cache.py``)."""
+    shape = (num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
