@@ -6,10 +6,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes passed from Python (kernels/_build.py::dtype_code)
-enum { DT_F32 = 0, DT_BF16 = 1 };
+// dtype codes passed from Python (kernels/_build.py::dtype_code); int8
+// payloads have entry points of their own and need no code
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }

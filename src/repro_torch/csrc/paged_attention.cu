@@ -2,12 +2,25 @@
 //
 // Replaces: repro/kernels/paged_attention.py::paged_attention -> _kernel
 // (decode) and ::paged_prefill -> _prefill_kernel (chunked prefill), fp
-// pools.  Both entry points share one kernel: decode is a 1-token chunk
-// whose query sits at position lengths[b] - 1.
+// pools; and, for int8 pools, ::paged_attention -> _kernel_quant and
+// ::paged_prefill -> _prefill_kernel_quant (with _dequant_page).  All four
+// entry points share one kernel: decode is a 1-token chunk whose query
+// sits at position lengths[b] - 1.
 //
 // Bound on the H100: bytes for decode (each live K/V page is read once per
 // kv head and used by only rep = H / Hkv query rows), and for prefill the
-// same K/V bytes plus 4 * D operations per (query row, visible key).
+// same K/V bytes plus 4 * D operations per (query row, visible key).  Int8
+// pools halve the K/V bytes; their scales add 2 * 4 bytes per (token, kv
+// head) per-token, or per (page, kv head) per-page.
+//
+// Int8 pools: the staging loop below converts each K/V element to fp32 on
+// its way into shared memory anyway; with scales it multiplies by the
+// token's scale (scales[(page * ps + off) * Hkv + g], per-token) or the
+// page's (scales[page * Hkv + g], per-page), in fp32, as _dequant_page
+// does.  Everything after staging is the fp kernel, so no fp copy of the
+// cache ever reaches global memory.  Only keys below the row's length are
+// staged, so unwritten scale cells (zeros) and payload cells are never
+// read.
 //
 // Design: one block per (row b, kv head g, tile of query positions); the
 // tile holds up to 32 query rows (positions x the rep query heads that
@@ -35,10 +48,14 @@ constexpr int RPW = 8;              // query rows per warp
 constexpr int ROWS = WARPS * RPW;   // query rows per block
 constexpr int TOK = 16;             // K/V tokens staged at a time
 
-template <typename TQ, typename TK>
+// scale pools of int8 payloads: none (fp pools), one per token, one per page
+enum { SCALE_NONE = 0, SCALE_TOKEN = 1, SCALE_PAGE = 2 };
+
+template <typename TQ, typename TK, typename TS, int SM>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const TQ* __restrict__ q, const TK* __restrict__ kp,
-            const TK* __restrict__ vp, const int32_t* __restrict__ bt,
+            const TK* __restrict__ vp, const TS* __restrict__ ksc,
+            const TS* __restrict__ vsc, const int32_t* __restrict__ bt,
             const int32_t* __restrict__ seq_start,
             const int32_t* __restrict__ lengths, TQ* __restrict__ out, int S,
             int H, int Hkv, int D, int ps, int maxp, int qt, float scale,
@@ -85,9 +102,18 @@ attn_kernel(const TQ* __restrict__ q, const TK* __restrict__ kp,
       const int tt = e / D, d = e - tt * D;
       const int kpos = t0 + tt;
       const int page = bt[(size_t)b * maxp + kpos / ps];
-      const size_t off = (((size_t)page * ps + kpos % ps) * Hkv + g) * D + d;
-      ks[tt][d] = to_f32(kp[off]);
-      vs[tt][d] = to_f32(vp[off]);
+      const size_t cell = ((size_t)page * ps + kpos % ps) * Hkv + g;
+      float kf = to_f32(kp[cell * D + d]), vf = to_f32(vp[cell * D + d]);
+      if constexpr (SM == SCALE_TOKEN) {
+        kf *= to_f32(ksc[cell]);
+        vf *= to_f32(vsc[cell]);
+      } else if constexpr (SM == SCALE_PAGE) {
+        const size_t pg = (size_t)page * Hkv + g;
+        kf *= to_f32(ksc[pg]);
+        vf *= to_f32(vsc[pg]);
+      }
+      ks[tt][d] = kf;
+      vs[tt][d] = vf;
     }
     __syncthreads();
     for (int tt = 0; tt < nt; ++tt) {
@@ -130,42 +156,62 @@ attn_kernel(const TQ* __restrict__ q, const TK* __restrict__ kp,
   }
 }
 
-template <typename TQ, typename TK>
-void launch(const void* q, const void* kp, const void* vp, const void* bt,
-            const void* st, const void* ln, void* out, int B, int S, int H,
-            int Hkv, int D, int ps, int maxp, int qt, float scale, int decode,
-            cudaStream_t stream) {
+template <typename TQ, typename TK, typename TS, int SM>
+void launch(const void* q, const void* kp, const void* vp, const void* ksc,
+            const void* vsc, const void* bt, const void* st, const void* ln,
+            void* out, int B, int S, int H, int Hkv, int D, int ps, int maxp,
+            int qt, float scale, int decode, cudaStream_t stream) {
   dim3 grid(B, Hkv, (S + qt - 1) / qt), block(THREADS);
-  attn_kernel<TQ, TK><<<grid, block, 0, stream>>>(
-      (const TQ*)q, (const TK*)kp, (const TK*)vp, (const int32_t*)bt,
-      (const int32_t*)st, (const int32_t*)ln, (TQ*)out, S, H, Hkv, D, ps,
-      maxp, qt, scale, decode);
+  attn_kernel<TQ, TK, TS, SM><<<grid, block, 0, stream>>>(
+      (const TQ*)q, (const TK*)kp, (const TK*)vp, (const TS*)ksc,
+      (const TS*)vsc, (const int32_t*)bt, (const int32_t*)st,
+      (const int32_t*)ln, (TQ*)out, S, H, Hkv, D, ps, maxp, qt, scale,
+      decode);
 }
 
-int dispatch(const void* q, const void* kp, const void* vp, const void* bt,
-             const void* st, const void* ln, void* out, int B, int S, int H,
-             int Hkv, int D, int ps, int maxp, float scale, int decode,
-             int q_dtype, int kv_dtype, void* stream) {
+// kv_dtype DT_I8 takes scale pools (s_dtype, per_page); fp pools take none
+int dispatch(const void* q, const void* kp, const void* vp, const void* ksc,
+             const void* vsc, const void* bt, const void* st, const void* ln,
+             void* out, int B, int S, int H, int Hkv, int D, int ps, int maxp,
+             float scale, int decode, int q_dtype, int kv_dtype, int s_dtype,
+             int per_page, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H % Hkv || D % 32 || D > DMAX ||
       ps < 1 || maxp < 1 || H / Hkv > ROWS || Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((kv_dtype == DT_I8) != (ksc != nullptr && vsc != nullptr) ||
+      (kv_dtype != DT_I8 && (ksc != nullptr || vsc != nullptr)))
     return (int)cudaErrorInvalidValue;
   const int rep = H / Hkv;
   const int qt = decode ? 1 : min(S, ROWS / rep);
   if ((S + qt - 1) / qt > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define PA_LAUNCH(TQ, TK)                                                    \
-  launch<TQ, TK>(q, kp, vp, bt, st, ln, out, B, S, H, Hkv, D, ps, maxp, qt, \
-                 scale, decode, s)
-  if (q_dtype == DT_F32 && kv_dtype == DT_F32)
-    PA_LAUNCH(float, float);
-  else if (q_dtype == DT_F32 && kv_dtype == DT_BF16)
-    PA_LAUNCH(float, __nv_bfloat16);
-  else if (q_dtype == DT_BF16 && kv_dtype == DT_F32)
-    PA_LAUNCH(__nv_bfloat16, float);
-  else if (q_dtype == DT_BF16 && kv_dtype == DT_BF16)
-    PA_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  else
+#define PA_LAUNCH(TQ, TK, TS, SM)                                           \
+  launch<TQ, TK, TS, SM>(q, kp, vp, ksc, vsc, bt, st, ln, out, B, S, H, Hkv, \
+                         D, ps, maxp, qt, scale, decode, s)
+  typedef __nv_bfloat16 bf16;
+  const bool qf = q_dtype == DT_F32, qb = q_dtype == DT_BF16;
+  if (kv_dtype == DT_I8) {
+    const bool sf = s_dtype == DT_F32, sb = s_dtype == DT_BF16;
+    if (qf && sf && !per_page) PA_LAUNCH(float, int8_t, float, SCALE_TOKEN);
+    else if (qf && sf && per_page) PA_LAUNCH(float, int8_t, float, SCALE_PAGE);
+    else if (qf && sb && !per_page) PA_LAUNCH(float, int8_t, bf16, SCALE_TOKEN);
+    else if (qf && sb && per_page) PA_LAUNCH(float, int8_t, bf16, SCALE_PAGE);
+    else if (qb && sf && !per_page) PA_LAUNCH(bf16, int8_t, float, SCALE_TOKEN);
+    else if (qb && sf && per_page) PA_LAUNCH(bf16, int8_t, float, SCALE_PAGE);
+    else if (qb && sb && !per_page) PA_LAUNCH(bf16, int8_t, bf16, SCALE_TOKEN);
+    else if (qb && sb && per_page) PA_LAUNCH(bf16, int8_t, bf16, SCALE_PAGE);
+    else return (int)cudaErrorInvalidValue;
+  } else if (qf && kv_dtype == DT_F32) {
+    PA_LAUNCH(float, float, float, SCALE_NONE);
+  } else if (qf && kv_dtype == DT_BF16) {
+    PA_LAUNCH(float, bf16, float, SCALE_NONE);
+  } else if (qb && kv_dtype == DT_F32) {
+    PA_LAUNCH(bf16, float, float, SCALE_NONE);
+  } else if (qb && kv_dtype == DT_BF16) {
+    PA_LAUNCH(bf16, bf16, float, SCALE_NONE);
+  } else {
     return (int)cudaErrorInvalidValue;
+  }
 #undef PA_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -178,8 +224,9 @@ extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
                                int B, int H, int Hkv, int D, int ps, int maxp,
                                float scale, int q_dtype, int kv_dtype,
                                void* stream) {
-  return dispatch(q, kp, vp, bt, lengths, lengths, out, B, 1, H, Hkv, D, ps,
-                  maxp, scale, 1, q_dtype, kv_dtype, stream);
+  return dispatch(q, kp, vp, nullptr, nullptr, bt, lengths, lengths, out, B,
+                  1, H, Hkv, D, ps, maxp, scale, 1, q_dtype, kv_dtype, 0, 0,
+                  stream);
 }
 
 // Chunked prefill: q/out (B, S, H, D); query i of row b sits at
@@ -190,6 +237,35 @@ extern "C" int paged_prefill(const void* q, const void* kp, const void* vp,
                              int H, int Hkv, int D, int ps, int maxp,
                              float scale, int q_dtype, int kv_dtype,
                              void* stream) {
-  return dispatch(q, kp, vp, bt, seq_start, lengths, out, B, S, H, Hkv, D, ps,
-                  maxp, scale, 0, q_dtype, kv_dtype, stream);
+  return dispatch(q, kp, vp, nullptr, nullptr, bt, seq_start, lengths, out,
+                  B, S, H, Hkv, D, ps, maxp, scale, 0, q_dtype, kv_dtype, 0,
+                  0, stream);
+}
+
+// Int8 decode: pools int8 (P, ps, Hkv, D); ksc/vsc (P, ps, Hkv) per-token
+// or, with per_page, (P, Hkv); s_dtype their storage type.
+extern "C" int paged_attention_int8(const void* q, const void* kp,
+                                    const void* vp, const void* ksc,
+                                    const void* vsc, const void* bt,
+                                    const void* lengths, void* out, int B,
+                                    int H, int Hkv, int D, int ps, int maxp,
+                                    float scale, int q_dtype, int s_dtype,
+                                    int per_page, void* stream) {
+  return dispatch(q, kp, vp, ksc, vsc, bt, lengths, lengths, out, B, 1, H,
+                  Hkv, D, ps, maxp, scale, 1, q_dtype, DT_I8, s_dtype,
+                  per_page, stream);
+}
+
+// Int8 chunked prefill: as paged_prefill, with scale pools as above.
+extern "C" int paged_prefill_int8(const void* q, const void* kp,
+                                  const void* vp, const void* ksc,
+                                  const void* vsc, const void* bt,
+                                  const void* seq_start, const void* lengths,
+                                  void* out, int B, int S, int H, int Hkv,
+                                  int D, int ps, int maxp, float scale,
+                                  int q_dtype, int s_dtype, int per_page,
+                                  void* stream) {
+  return dispatch(q, kp, vp, ksc, vsc, bt, seq_start, lengths, out, B, S, H,
+                  Hkv, D, ps, maxp, scale, 0, q_dtype, DT_I8, s_dtype,
+                  per_page, stream);
 }

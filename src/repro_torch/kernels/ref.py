@@ -5,7 +5,8 @@ They are the CPU lane of every kernel wrapper and the yardstick each CUDA
 kernel is held against on the card.  The GPTQ product dequantizes in
 float32 — the arithmetic of the Pallas kernels and of the CUDA kernels —
 and the attention versions gather every sequence's pages into a contiguous
-view, which is exactly the copy the kernels exist to avoid.
+view (dequantized in float32 when the pools are int8), which is exactly
+the copy the kernels exist to avoid.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.core.gptq import QuantizedLinear, dequantize
+from repro_torch.serving import kv_quant
 
 _NEG = -1e30     # finite mask value, as in repro's oracles
 _Q_BLOCK = 128   # query rows of one prefill logits block (memory only)
@@ -33,25 +35,41 @@ def gptq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
     return y.to(out_dtype or x.dtype)
 
 
-def _gather(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
-    """(P, ps, Hkv, D) pool + (B, maxp) table -> (B, maxp*ps, Hkv, D) f32."""
+def _gather(pages: torch.Tensor, block_tables: torch.Tensor,
+            scales: torch.Tensor | None = None) -> torch.Tensor:
+    """(P, ps, Hkv, D) pool + (B, maxp) table -> (B, maxp*ps, Hkv, D) f32.
+    An int8 pool is dequantized in float32 with its (P, ps, Hkv) per-token
+    or (P, Hkv) per-page ``scales``, gathered alongside."""
     b = block_tables.shape[0]
     _, _, hkv, d = pages.shape
-    return pages[block_tables.long()].reshape(b, -1, hkv, d).to(torch.float32)
+    idx = block_tables.long()
+    kv = pages[idx]                                   # (B, maxp, ps, Hkv, D)
+    if scales is not None:
+        kv = kv_quant.dequantize(kv, scales[idx])
+    return kv.reshape(b, -1, hkv, d).to(torch.float32)
+
+
+def _check_scales(k_scales, v_scales):
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
                         lengths: torch.Tensor, *,
+                        k_scales: torch.Tensor | None = None,
+                        v_scales: torch.Tensor | None = None,
                         scale: float | None = None) -> torch.Tensor:
     """One-token decode attention over a page pool.  q (B, H, D); pools
-    (P, ps, Hkv, D); block_tables (B, maxp); lengths (B,).  Keys at
-    positions >= lengths are masked; a length-0 row yields exact zeros."""
+    (P, ps, Hkv, D), int8 with ``k_scales``/``v_scales`` (P, ps, Hkv) or
+    (P, Hkv); block_tables (B, maxp); lengths (B,).  Keys at positions >=
+    lengths are masked; a length-0 row yields exact zeros."""
+    _check_scales(k_scales, v_scales)
     b, h, d = q.shape
     hkv = k_pages.shape[2]
     rep = h // hkv
-    k = _gather(k_pages, block_tables)
-    v = _gather(v_pages, block_tables)
+    k = _gather(k_pages, block_tables, k_scales)
+    v = _gather(v_pages, block_tables, v_scales)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.reshape(b, hkv, rep, d).to(torch.float32)
     logits = torch.einsum("bgrd,bkgd->bgrk", qg, k) * scale
@@ -67,17 +85,21 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
                       v_pages: torch.Tensor, block_tables: torch.Tensor,
                       seq_start: torch.Tensor, lengths: torch.Tensor, *,
+                      k_scales: torch.Tensor | None = None,
+                      v_scales: torch.Tensor | None = None,
                       scale: float | None = None) -> torch.Tensor:
     """Chunked causal attention over a page pool.  q (B, S, H, D): query i
     of row b sits at ``seq_start[b] + i``; keys are visible when ``kpos <=
-    qpos`` and ``kpos < lengths[b]``.  Fully masked query rows yield exact
-    zeros.  Queries go in blocks of ``_Q_BLOCK`` rows to bound the logits'
-    memory; the result does not depend on the block."""
+    qpos`` and ``kpos < lengths[b]``; int8 pools come with scales as in
+    ``paged_attention_ref``.  Fully masked query rows yield exact zeros.
+    Queries go in blocks of ``_Q_BLOCK`` rows to bound the logits' memory;
+    the result does not depend on the block."""
+    _check_scales(k_scales, v_scales)
     b, s, h, d = q.shape
     hkv = k_pages.shape[2]
     rep = h // hkv
-    k = _gather(k_pages, block_tables)
-    v = _gather(v_pages, block_tables)
+    k = _gather(k_pages, block_tables, k_scales)
+    v = _gather(v_pages, block_tables, v_scales)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     kpos = torch.arange(k.shape[1], device=q.device)
     start = seq_start.to(q.device)

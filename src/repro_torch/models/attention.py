@@ -7,7 +7,9 @@ cells with one scatter per pool — in place: the pool tensors are updated,
 not copied — then attends with the paged kernels: ``paged_attention`` for
 1-token chunks, ``paged_prefill`` for wider ones.  Right-padded positions
 (``write_lens``) and positions past the block table write to the null page
-0, which no row ever reads unmasked.
+0, which no row ever reads unmasked.  When the cache carries scale pools
+(int8 KV) each token's K and V are quantized per kv head on the way in and
+their scales land in the same (page, offset) cells of the scale pools.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
+from repro_torch.serving import kv_quant as KQ
 
 
 class GQA(nn.Module):
@@ -61,6 +64,7 @@ class GQA(nn.Module):
         k = L.apply_rope(k, positions, cfg.rope_theta)
 
         kp, vp = cache["k_pages"], cache["v_pages"]
+        ksc, vsc = cache.get("k_scales"), cache.get("v_scales")
         ps, maxp = kp.shape[1], block_tables.shape[1]
         ar = torch.arange(s, device=x.device)
         tpos = seq_lens[:, None].to(torch.int64) + ar[None, :]     # (B, S)
@@ -71,14 +75,20 @@ class GQA(nn.Module):
         if write_lens is not None:
             pages = torch.where(ar[None, :] < write_lens[:, None], pages, 0)
         pages, offs = pages.long(), tpos % ps
+        if ksc is not None:                  # quantize-on-write, per token
+            k, kss = KQ.quantize(k, scale_dtype=ksc.dtype)
+            v, vss = KQ.quantize(v, scale_dtype=vsc.dtype)
+            ksc[pages, offs] = kss
+            vsc[pages, offs] = vss
         kp[pages, offs] = k.to(kp.dtype)
         vp[pages, offs] = v.to(vp.dtype)
+        scales = dict(k_scales=ksc, v_scales=vsc)
         if s == 1:
             out = PA.paged_attention(q[:, 0], kp, vp, block_tables,
-                                     seq_lens + 1)[:, None]
+                                     seq_lens + 1, **scales)[:, None]
         else:
             wl = write_lens if write_lens is not None else torch.full_like(
                 seq_lens, s)
             out = PA.paged_prefill(q, kp, vp, block_tables, seq_lens,
-                                   seq_lens + wl)
+                                   seq_lens + wl, **scales)
         return L.linear(self.wo, out.reshape(b, s, cfg.num_heads * hd))

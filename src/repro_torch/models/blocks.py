@@ -36,10 +36,23 @@ class Block(nn.Module):
 
 def block_paged_cache_init(cfg: ModelConfig, num_layers: int, num_pages: int,
                            page_size: int, *, dtype: torch.dtype,
-                           device: torch.device) -> dict:
+                           device: torch.device, kv_quant=None) -> dict:
     """(num_layers, num_pages + 1, page_size, Hkv, D) K and V pools; page 0
-    is the null page (see ``serving/kv_cache.py``)."""
+    is the null page (see ``serving/kv_cache.py``).  With an int8
+    ``kv_quant`` the pools are int8 and ``k_scales``/``v_scales`` of shape
+    (num_layers, num_pages + 1, page_size, Hkv) in its scale dtype sit
+    beside them."""
     shape = (num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
              cfg.head_dim)
+    if kv_quant is not None and kv_quant.quantized:
+        if kv_quant.granularity != "token":
+            raise ValueError(
+                "the fused paged write path is per-token; per-page scales "
+                "are served by the PagedCache data-path API only")
+        sdt = kv_quant.scale_torch_dtype
+        return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scales": torch.zeros(shape[:-1], dtype=sdt, device=device),
+                "v_scales": torch.zeros(shape[:-1], dtype=sdt, device=device)}
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}

@@ -61,10 +61,13 @@ class LM(nn.Module):
         return cls(cfg, embedding, layers, final_norm)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         dtype: torch.dtype = torch.float32) -> dict:
+                         dtype: torch.dtype = torch.float32,
+                         kv_quant=None) -> dict:
+        """Page pools of every layer (int8 with scale pools when
+        ``kv_quant`` stores int8; see ``block_paged_cache_init``)."""
         return block_paged_cache_init(self.cfg, self.cfg.num_layers,
                                       num_pages, page_size, dtype=dtype,
-                                      device=self.device)
+                                      device=self.device, kv_quant=kv_quant)
 
     # --------------------------------------------------------------- forward
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +91,9 @@ class LM(nn.Module):
         s = x.shape[1]
         positions = seq_lens[:, None] + torch.arange(
             s, dtype=torch.int32, device=x.device)[None, :]
-        kp, vp = cache["k_pages"], cache["v_pages"]
         for i, layer in enumerate(self.layers):
             x = layer(x, cfg=cfg, positions=positions,
-                      cache={"k_pages": kp[i], "v_pages": vp[i]},
+                      cache={name: pool[i] for name, pool in cache.items()},
                       seq_lens=seq_lens, block_tables=block_tables,
                       write_lens=chunk_lens)
         if logit_index is not None:

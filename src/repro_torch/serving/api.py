@@ -42,7 +42,8 @@ def _not_ported(field: str, slice_name: str):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine construction config (paged layout, fp KV, plain decode)."""
+    """Engine construction config (paged layout, fp or int8 KV, plain
+    decode)."""
     batch_slots: int = 8
     max_len: int = 512
     kernels: KernelConfig = DEFAULT_KERNELS
@@ -52,7 +53,9 @@ class EngineConfig:
     num_pages: int | None = None      # None -> batch_slots * ceil(max_len/ps)
     cache_dtype: object = None        # None -> float32 (repro's default)
     seed: int = 0                     # torch.Generator of sampled rows
-    kv_quant: object = None           # "fp32"/"bf16" passthrough only
+    # KVQuantConfig or its dtype string: "fp32"/"bf16" passthrough (folded
+    # into cache_dtype) or "int8" pools with per-token scale pools
+    kv_quant: object = None
     page_pool_bytes: int | None = None
     clock: object = None              # None -> the real SystemClock
     # token budget of one fused step (None = whole remaining prompts)
@@ -87,16 +90,33 @@ class EngineConfig:
             raise ValueError(f"unknown cache layout {self.cache!r}")
         kvq = self.kv_quant
         if isinstance(kvq, str):
+            # shorthand; KVQuantConfig rejects unknown dtype strings
             kvq = KVQuantConfig(dtype=kvq)
         if kvq is not None:
+            if not isinstance(kvq, KVQuantConfig):
+                raise ValueError(f"kv_quant must be a KVQuantConfig or a "
+                                 f"dtype string, got {kvq!r}")
             if kvq.quantized:
-                _not_ported("kv_quant='int8'", "int8-KV")
-            dtype = kvq.torch_dtype
-            if self.cache_dtype is not None and self._dtype() != dtype:
-                raise ValueError(f"kv_quant {kvq.dtype!r} conflicts with "
-                                 f"cache_dtype={self.cache_dtype!r}")
-            object.__setattr__(self, "cache_dtype", dtype)
-            object.__setattr__(self, "kv_quant", None)
+                if self.cache_dtype is not None:
+                    raise ValueError(
+                        f"kv_quant='int8' stores int8 payloads — "
+                        f"cache_dtype={self.cache_dtype!r} would be ignored; "
+                        f"pass one or the other")
+                if kvq.granularity != "token":
+                    raise ValueError(
+                        "the engine's fused write path uses per-token "
+                        "scales; per-page granularity is served by the "
+                        "PagedCache data-path API only")
+                object.__setattr__(self, "kv_quant", kvq)
+            else:
+                # fp passthrough is just another way to spell cache_dtype
+                dtype = kvq.torch_dtype
+                if self.cache_dtype is not None and self._dtype() != dtype:
+                    raise ValueError(
+                        f"kv_quant passthrough dtype {kvq.dtype!r} "
+                        f"conflicts with cache_dtype={self.cache_dtype!r}")
+                object.__setattr__(self, "cache_dtype", dtype)
+                object.__setattr__(self, "kv_quant", None)
         if self.cache_dtype is not None:
             object.__setattr__(self, "cache_dtype", self._dtype())
         if self.page_pool_bytes is not None:

@@ -72,11 +72,17 @@ class Engine:
 
         cfg = model.cfg
         cache_dtype = config.cache_dtype or KV.DEFAULT_CACHE_DTYPE
+        kvq = config.kv_quant                 # int8 or None (EngineConfig)
+        self.kv_quant = kvq
+        # what the cache payloads are stored as (int8 when quantized)
+        self.cache_dtype = torch.int8 if kvq is not None else cache_dtype
         max_pages = -(-config.max_len // config.page_size)
         if config.page_pool_bytes is not None:
+            # int8 KV buys about twice the pages of bf16 from one budget
             num_pages = KQ.num_pages_for_budget(
                 config.page_pool_bytes, cfg.num_layers, cfg.num_kv_heads,
-                cfg.head_dim, config.page_size, dtype=cache_dtype)
+                cfg.head_dim, config.page_size, dtype=cache_dtype,
+                kv_quant=kvq)
         elif config.num_pages is not None:
             num_pages = config.num_pages
         else:
@@ -85,9 +91,9 @@ class Engine:
         self.pc = KV.PagedCache(num_pages, config.page_size,
                                 max_seqs=config.batch_slots,
                                 max_pages=max_pages, dtype=cache_dtype,
-                                device=self.device)
+                                kv_quant=kvq, device=self.device)
         self.cache = model.init_paged_cache(num_pages, config.page_size,
-                                            dtype=cache_dtype)
+                                            dtype=cache_dtype, kv_quant=kvq)
         self.batch_rows = config.batch_slots
         self._width_buckets = (1, *PREFILL_BUCKETS)
 

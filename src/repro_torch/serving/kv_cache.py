@@ -38,7 +38,7 @@ class PagedCache:
 
     def __init__(self, num_pages: int, page_size: int, *, max_seqs: int = 0,
                  max_pages: int = 0, dtype: torch.dtype = DEFAULT_CACHE_DTYPE,
-                 device=None):
+                 kv_quant=None, device=None):
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_seqs = max_seqs or num_pages
@@ -55,8 +55,12 @@ class PagedCache:
                                     device=self.device)
         self.rows: dict[int, int] = {}
         self._free_rows = list(range(self.max_seqs))[::-1]
-        self._hash_seed = prefix_hash_seed(("fp", _DTYPE_NAMES[dtype]),
-                                           page_size)
+        # the chain is seeded with the KV storage mode, so int8 pages and
+        # fp pages of the same tokens never match
+        quant_tag = ((kv_quant.dtype, kv_quant.granularity)
+                     if kv_quant is not None and kv_quant.quantized
+                     else ("fp", _DTYPE_NAMES[dtype]))
+        self._hash_seed = prefix_hash_seed(quant_tag, page_size)
         self._prefix_index: dict[int, int] = {}      # hash key -> page id
         self._page_key: dict[int, int] = {}          # page id -> hash key
         self.prefix_hits: dict[int, int] = {}        # seq_id -> pages reused

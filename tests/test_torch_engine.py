@@ -103,8 +103,7 @@ def test_engine_stream_abort_and_generate(smoke):
 
 
 def test_engine_refuses_options_of_later_slices():
-    for kw in (dict(cache="slot"), dict(kv_quant="int8"),
-               dict(preemption=True), dict(speculation=object()),
+    for kw in (dict(cache="slot"), dict(preemption=True), dict(speculation=object()),
                dict(mesh_shape=(2,)), dict(metrics=True),
                dict(max_queued=4), dict(prefix_cache_path="/nonexistent")):
         with pytest.raises(NotImplementedError, match="slice"):
